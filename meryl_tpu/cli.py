@@ -39,7 +39,7 @@ OP_NAMES = set(COUNT_OPS) | set(NEEDS_THRESHOLD) | set(NEEDS_CONSTANT) | {
 }
 
 USAGE = """usage: meryl [-V] [-Q] [-P] [-C] [options] action[s]
-A TPU-native k-mer counter and k-mer-set calculator with the
+A device-accelerated k-mer counter and k-mer-set calculator with the
 capabilities of meryl.  Actions form a tree:
 
   meryl k=21 count reads.fastq output reads.meryl
@@ -351,30 +351,6 @@ def run(b: CommandBuilder) -> int:
                     plan = configure_counting(paths, b.k, b.memory_gb)
                     for kk, vv in plan.items():
                         sys.stderr.write(f"  {kk}: {vv}\n")
-                    # analytic multi-chip prediction (measured stage
-                    # costs + interconnect model; parallel/scaling.py)
-                    from .parallel import scaling as sc
-                    from .parallel.scaling import scaling_report
-                    sys.stderr.write(
-                        "  predicted scaling ("
-                        f"{sc.TPU_GEN} ICI {sc.ICI_GB_S:g} GB/s; "
-                        f"t_local {sc.T_LOCAL_NS_PER_BASE:g} ns/base"
-                        f" from {sc.CALIBRATION['t_local_src']}, "
-                        f"t_merge {sc.T_MERGE_NS_PER_ELT:g} ns/elt"
-                        f" from {sc.CALIBRATION['t_merge_src']}; "
-                        "docs/multihost.md):\n")
-                    from .counter import shard_default_chunk
-                    for row in scaling_report(shard_default_chunk()):
-                        sys.stderr.write(
-                            f"    {row['devices']:4d} devices"
-                            f" ({row['hosts']} hosts):"
-                            f" eff {row['efficiency']:.2f}"
-                            f"  local {row['t_local_ms']}ms"
-                            f"  ici {row['t_ici_ms']}ms"
-                            f"  dcn {row['t_dcn_ms']}ms"
-                            f"  merge {row['t_merge_ms']}ms"
-                            f"  -> {row['bases_per_s'] / 1e9:.2f}"
-                            " Gbases/s\n")
             for inp in node.inputs:
                 if isinstance(inp, OpNode):
                     describe_counting(inp)

@@ -1,6 +1,6 @@
 """The on-disk k-mer database.
 
-Our own TPU-era format with the same *capabilities* as the reference
+Our own format with the same *capabilities* as the reference
 meryl DB (64-way prefix-partitioned, sorted, value histogram and
 statistics stored in the index so `histogram`/`statistics`/threshold
 initialization never rescan kmers  — reference

@@ -412,9 +412,8 @@ def _batch_found(L, codes_list, k: int):
     """One bulk lookup over many reads: concatenate their codes with
     0xFF breakers (which invalidate cross-read windows), query ALL
     positions at once, and return (found mask, per-read position
-    starts, per-read position span lengths).  This replaces the
-    per-read path, whose two device dispatches per read measured
-    ~0.04 Mbases/s against the reference's streaming C filter."""
+    starts, per-read position span lengths).  This replaces a
+    per-read path that paid two device dispatches per read."""
     buf, offs, lens = km.concat_codes_with_breakers(codes_list)
     nf, nr, vmask = _per_position_values([L], buf, k, exists_only=True)
     found = ((nf[0] > 0) | (nr[0] > 0)) & vmask

@@ -670,10 +670,9 @@ def scan_codes(path: str, hpc: bool = False, block: int = 1 << 22):
     """Yield uint8 code arrays (with 0xFF separators) for a sequence
     file, using the native scanner.  Transparently decompresses.
 
-    Large plain FASTA files take the record-parallel scan (the serial
-    scanner's ~1.25 GB/s is below the device pipeline's rate, so it
-    would cap end-to-end counting); everything else streams through
-    one stateful scanner."""
+    Large plain FASTA files take the record-parallel scan (one serial
+    scanner would cap end-to-end counting below the device pipeline's
+    rate); everything else streams through one stateful scanner."""
     if _parallel_scan_eligible(path):
         yield from scan_codes_parallel(path, hpc)
         return

@@ -2,15 +2,11 @@
 (Merqury screening) regime, where the database is much larger than a
 query slab.
 
-Why this shape (round-4 probes, scripts/probe_r4_lookup.py): at a
-2^28-entry table EVERY gather formulation costs 10-54 ns per element
-on TPU (flat 13.2, vmap'd dynamic_slice 53.6, take-with-computed-index
-17.3, row-aligned take_along_axis 10.2), so a binary search runs at
-4.5-8.4 Mq/s and even ONE gather per query eats half the 25 ns budget
-of a 40 Mq/s target.  The r3 routed join avoids gathers but re-sorts
-the whole grouped DB inside every slab (G x LDB entries), so for
-N >> Q its per-query cost diverges.  This kernel touches the DB only
-with dense streaming reads:
+Why this shape: a binary search pays several dependent gathers per
+query against a table far larger than any cache.  The routed join
+avoids gathers but re-sorts the whole grouped DB inside every slab
+(G x LDB entries), so for N >> Q its per-query cost diverges.  This
+kernel touches the DB only with dense streaming reads:
 
   build (host, once):  pad the sorted DB into a (B, s_cap) top-b-bit
       bucket grid — per bucket, its suffix keys and values at fixed
@@ -31,8 +27,8 @@ with dense streaming reads:
       compare of the cell's suffix against its bucket's s_cap DB
       entries; value = sum of matching entries' values (DB keys are
       unique, padding has value 0, so the sum is exact).  Traffic =
-      c * B * s_cap * 8 bytes of sequential HBM reads — the only DB
-      touch, at memory-bandwidth speed.
+      c * B * s_cap * 8 bytes of sequential device-memory reads — the
+      only DB touch, at memory-bandwidth speed.
   pack (device):  one flag sort compacts results to each coarse row's
       front; reals per row <= capA by construction, so the download
       slice is statically (B1, capA).
@@ -40,7 +36,7 @@ with dense streaming reads:
 Reference contract: merylExactLookup value()/exists()
 (/root/reference/src/meryl-lookup/meryl-lookup.C:40-100); the
 reference probes one kmer at a time from CPU threads — this is the
-TPU-native batched equivalent for its dominant screening workload.
+batched device equivalent for its dominant screening workload.
 """
 
 from __future__ import annotations
@@ -106,15 +102,12 @@ def plan_bacjoin(n_db: int, k: int, bucket_max, q_slab: int,
         # realized overflow fraction near the 3% design point.
         f_over = 1.0 + q_slab / max(1, n_db)
         c = _cap_for_overflow(q_slab / B, target=0.03 / f_over)
-        # device work model (ns/slab): align/pack sorts ~0.83 ns/slot
-        # (3 sorts touch the q_slab + B*c slots); the fused resolve
-        # streams the grid from HBM once (~0.01 ns/grid-elt at ~800
-        # GB/s) but its VPU compute still scales with c (the (B, c,
-        # s_cap) compare+select tensor, ~0.003 ns/elt at ~1K lanes/
-        # cycle).  Calibration: predicts 90 vs measured 73 ms/slab at
-        # b=21/c=7 and 160 vs 183 at b=16/c=130 (N=2^28, Q=2^23) —
-        # and, decisively, ORDERS them right; the r4.0 model without
-        # the c term picked b=16 and cost 2.5x (45.8 vs 114.6 Mq/s).
+        # device work model (relative weights of three terms): the
+        # align/pack sorts touch the q_slab + B*c slots 3 times; the
+        # fused resolve streams the grid once, but its compare work
+        # still scales with c (the (B, c, s_cap) compare+select
+        # tensor).  Without the c term the planner picks too-coarse
+        # buckets with huge c.
         work = 0.83 * 3 * (q_slab + B * c) \
             + 0.01 * B * s_cap * (ps + 1) \
             + 0.003 * c * B * s_cap * ps
@@ -134,7 +127,7 @@ def plan_bacjoin(n_db: int, k: int, bucket_max, q_slab: int,
             # per slab) and blew up at mid-size b1=10 where a row
             # carries 8192 queries: ~0.7% overflow = ~55/row meant
             # half the rows lost their captures and fell back
-            # WHOLESALE (the round-5 product probe's 78 s slab)
+            # WHOLESALE
             ovfcap = max(64, min(1024, _ceil_div(
                 int(4 * (0.03 / f_over) * lam) + 32, 8) * 8))
             best = {"b": b, "B": B, "s_cap": s_cap, "c": c, "ps": ps,
@@ -157,9 +150,9 @@ def plan_bacjoin_segmented(n_db: int, k: int, bucket_max, q_slab: int,
     cap, split the grid into K equal coarse-row ranges (segments) of
     <= seg_cap_bytes each.  The grid lives on the HOST; segments are
     uploaded one at a time and each serves every query slab routed to
-    its key range — out-of-core lookup for DBs past HBM (the reference
-    simply requires the whole table in RAM: merylExactLookup, SURVEY
-    §2.3; the TPU-native analog streams it through HBM).
+    its key range — out-of-core lookup for DBs past device memory (the
+    reference simply requires the whole table in RAM: merylExactLookup,
+    SURVEY §2.3; this analog streams it through the device).
 
     capA is resized for the K-fold query concentration (a slab routed
     to one segment lands on B1/K rows).  Returns None only for
@@ -217,8 +210,7 @@ def build_db_grid(hi: np.ndarray, lo: np.ndarray, counts: np.ndarray,
             return out
     top = _top_bits_np(hi, lo, k, b)  # already int64 — every extra
     # astype here is a fresh 8n-byte allocation whose first-touch page
-    # faults dominate the build on this VM (measured: 3 copies ~ 9 s
-    # of a 36 s build at n = 2^26)
+    # faults are a large share of the build
     cnt = np.bincount(top, minlength=B)
     starts = np.zeros(B + 1, np.int64)
     np.cumsum(cnt, out=starts[1:])
@@ -450,8 +442,8 @@ def bacjoin_kernel(dbd, dbv, qlow, n_row, cfg, fused=None,
     # queries: sorting [queries ++ pads] then ranking by cummax keeps
     # min(n_f, c) queries + (c - n_f) pads = EXACTLY c per bucket, so
     # the compaction sort's leading B2*c slots are the aligned cells
-    # (no per-bucket counting — the r3 join's count search costs
-    # B1*B2*log2 gathers at 10 ns each here)
+    # (no per-bucket counting — the routed join's count search costs
+    # B1*B2*log2 gathers here)
     D = B2 * c
     pad_key = (jax.lax.broadcasted_iota(U32, (B2, c), 0) * U32(2)
                + U32(1)).reshape(D)
@@ -503,8 +495,7 @@ def bacjoin_kernel(dbd, dbv, qlow, n_row, cfg, fused=None,
     if fused:
         # one (B, c, s_cap) broadcast-compare reduction: XLA reads the
         # grid ONCE for all c lanes (the per-lane loop below re-streams
-        # dbd+dbv from HBM c times — measured 35.6 vs 44.9 Mq/s at
-        # c=3/N=2^28, scripts/probe_r4_bacj_sweep.py)
+        # dbd+dbv from device memory c times)
         eq = None
         for p in range(ps):
             qdp = _bits_from_planes(cells_q, 32 * p,

@@ -2,17 +2,9 @@
 
 Replaces the reference's per-bucket spin-locked insert + std::sort + RLE
 (/root/reference/src/meryl/merylCountArray.C:323-365) with sort-centric
-dataflow — the TPU-native formulation (no locks, no data-dependent
-shapes).
+dataflow (no locks, no data-dependent shapes).
 
-Measured cost model (v5e, 16M-element chunks):
-  lax.sort (u32 keys, small-range primary)   ~50 ms
-  elementwise / shifts                       ~0.2 ms per pass
-  lax.cummin / associative_scan              ~10-40 ms
-  jnp.take (gather)                          ~250 ms   <- avoid
-  jax.ops.segment_* (scatter)                ~350 ms   <- avoid
-
-The hot path is therefore: one multiword radix sort, neighbor-compare
+The hot path is one multiword sort, neighbor-compare
 run starts, and a reversed cummin to find each run's end — run length
 is a subtraction.  No gathers, no scatters.  The unique entries stay at
 their run-start positions (sparse); the host slices them out with one
@@ -105,9 +97,8 @@ def sort_starts(planes, validb, rowlen: int | None = None):
     device->host transfer by the counts array.
 
     rowlen: when set (must divide L), the chunk is sorted as L/rowlen
-    INDEPENDENT rows — a single long lax.sort costs up to 20x the
-    ~1.5 ns/element floor that row-batched sorts hit (measured,
-    docs/tpu-design.md), and duplicates across rows are union-summed
+    INDEPENDENT rows (one long sort row is the slow shape), and
+    duplicates across rows are union-summed
     by the host merge cascade anyway.  Run starts are forced at row
     boundaries so no run crosses a row.
 
@@ -261,8 +252,8 @@ def value_histogram(counts, num_values: int, block: int = 1 << 15):
     num_values accumulate in the last bin; h[0] forced 0, so zero-count
     padding is ignored).
 
-    Blocked compare-and-reduce (fuses on the VPU) rather than a
-    segment_sum scatter, which serializes on TPU."""
+    Blocked compare-and-reduce (fuses into elementwise work) rather
+    than a segment_sum scatter."""
     L = counts.shape[0]
     v = jnp.minimum(counts, U32(num_values - 1))
     pad = (-L) % block

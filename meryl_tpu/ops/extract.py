@@ -231,9 +231,9 @@ def extract_kmers_packed(packed2, exc, n_real, k: int,
     W = packed2.shape[0]
     sh = U32(2) * jax.lax.broadcasted_iota(U32, (W, 16), 1)
     codes = ((packed2[:, None] >> sh) & U32(3)).reshape(W * 16)
-    # exceptions are sparse (~1 per read + N runs): a tiny scatter is
-    # ~7 ns/element on a few thousand elements — negligible next to a
-    # bitmask sideband's L/8 wire bytes
+    # exceptions are sparse (~1 per read + N runs): a tiny scatter of
+    # a few thousand elements costs far less than a bitmask sideband's
+    # L/8 wire bytes
     codes = codes.at[exc].set(U32(INVALID_CODE), mode="drop",
                               unique_indices=True)
     return _extract_from_u32(codes, k, mode, n_real=n_real)

@@ -1,10 +1,10 @@
 """Multiword (N x uint32-plane) integer helpers for JAX.
 
-TPUs have no native 64/128-bit integers, so a 2k-bit kmer (k <= 64,
-reference `kmdata` is 128-bit: /root/reference/src/meryl/merylCountArray.C:512)
-is modeled as P = ceil(2k/32) uint32 "planes", least-significant plane
-first.  All shift amounts are Python-static so everything unrolls at
-trace time.
+JAX computes in 32-bit integers by default (x64 off), so a 2k-bit
+kmer (k <= 64; the reference's `kmdata` is 128-bit,
+src/meryl/merylCountArray.C:512) is modeled as
+P = ceil(2k/32) uint32 "planes", least-significant plane first.  All
+shift amounts are Python-static so everything unrolls at trace time.
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """Scatter-free segmented reductions over sorted runs.
 
-TPU background: XLA lowers jax.ops.segment_* to scatters, which
-serialize on TPU (measured ~25x slower than the sort itself for a 16M
-chunk).  Runs of equal kmers are CONTIGUOUS after sorting, so every
+Background: XLA lowers jax.ops.segment_* to scatters.  Runs of equal
+kmers are CONTIGUOUS after sorting, so every
 per-run reduction can instead be phrased as a segmented prefix scan
 (lax.associative_scan with a reset flag) — log-depth, fully vectorized.
 

@@ -1,6 +1,6 @@
 """Device-side k-mer set/arithmetic operations.
 
-TPU-native replacement for the reference's lazy N-way streaming merge
+Device replacement for the reference's lazy N-way streaming merge
 (/root/reference/src/meryl/merylOp-nextMer.C:418-683): instead of a
 per-kmer pull loop cloned 64x under OpenMP, each DB bucket is evaluated
 as one batched kernel — concatenate the (sorted, unique) inputs, sort,
@@ -127,12 +127,12 @@ def _apply_value_rule(op: str, m: int, act_len, v_first, first_idx,
 @jax.jit
 def _merge_sort_stage(planes, values, input_ids):
     """Stable multiword sort with payloads; the program ends at the
-    sort to keep XLA:TPU's fast sort path (see ops/count.py).
+    sort (see ops/count.py).
 
     Accepts flat (L,) arrays or row-batched (R, L) arrays.  Rows are
     sorted INDEPENDENTLY (lax.sort along the last axis) and returned
-    flattened: a single long lax.sort costs up to 20x the row-batched
-    floor (docs/tpu-design.md), so callers whose inputs are already
+    flattened: one long sort row is the slow shape, so callers whose
+    inputs are already
     sorted split them at shared key boundaries into rows (see
     optree._pack_rows) — every instance of a key lands in exactly one
     row, which makes the flattened result globally ordered."""
@@ -367,9 +367,8 @@ def _windowed_reductions(start, present, val, ids, m: int):
     PRESENT entries, and the stable sort keeps them contiguous at the
     run head (packed inputs place real entries before the sentinel
     padding whose value-0 entries are the only non-present ones).
-    m-1 shifted elementwise passes cost far less than the log-depth
-    segmented scans they replace (measured 4.7 ns/element for the
-    fwd+bwd scan pair vs ~0.1 ns per shifted pass)."""
+    m-1 shifted elementwise passes replace log-depth segmented
+    scans."""
     L = val.shape[0]
 
     def shift(x, o, fill):

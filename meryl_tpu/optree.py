@@ -158,9 +158,8 @@ class BucketEvaluator:
             return 256
         return 1 << (int(n - 1).bit_length())
 
-    # row-batched merge packing: a single long lax.sort costs up to 20x
-    # the ~1.5 ns/element floor that row-batched sorts hit
-    # (docs/tpu-design.md), and the merge inputs are already sorted —
+    # row-batched merge packing: one long sort row is the slow shape,
+    # and the merge inputs are already sorted —
     # so big bucket groups are split at shared key boundaries into
     # independent rows of ~ROW_TARGET entries and sorted as one
     # (R, L) batch.  ROW_SPLIT_MIN keeps small dispatches on the flat

@@ -7,10 +7,16 @@ job).
 
 Every process executes the same CLI argv; `count` detects the
 distributed job and routes through the multi-host SPMD path
-(meryl_tpu/parallel/multihost.py).  On a real multi-host TPU pod each
+(meryl_tpu/parallel/multihost.py).  On a multi-machine cluster each
 host runs its own rank with MERYL_TPU_COORD pointing at rank 0 (this
 launcher is the single-machine convenience wrapper; set the env vars
-directly for real pods).
+directly for real clusters).
+
+On a GPU machine each process gets its own cards: a disjoint
+CUDA_VISIBLE_DEVICES slice of --devices-per-proc cards (default: the
+visible cards split evenly), so no two processes open the same card.
+With JAX_PLATFORMS=cpu, --devices-per-proc is the number of virtual CPU
+devices per process instead.
 
 The reference has no such mode — its distributed story is manual
 `segment=a/b` jobs plus a DB merge (merylCommandBuilder.C:313-315).
@@ -30,6 +36,36 @@ def free_port() -> int:
     p = s.getsockname()[1]
     s.close()
     return p
+
+
+def visible_gpus(env) -> list[str]:
+    """Card ids this launcher may hand out; [] on a CPU run or a
+    machine without NVIDIA cards.  Never initializes JAX (the parent
+    must not open a card its children need)."""
+    plat = env.get("JAX_PLATFORMS", "").lower()
+    if plat and not any(p in plat for p in ("cuda", "gpu")):
+        return []
+    vis = env.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return [v.strip() for v in vis.split(",") if v.strip()]
+    try:
+        r = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                           text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    n = sum(1 for line in r.stdout.splitlines() if line.startswith("GPU "))
+    return [str(i) for i in range(n)]
+
+
+def gpu_slices(gpus: list[str], nprocs: int,
+               dev_per_proc: int | None) -> list[str]:
+    """Disjoint CUDA_VISIBLE_DEVICES value for each process."""
+    per = dev_per_proc or len(gpus) // nprocs
+    if per < 1 or per * nprocs > len(gpus):
+        raise ValueError(f"{nprocs} processes x {per} cards need "
+                         f"{nprocs * max(per, 1)} cards, "
+                         f"{len(gpus)} visible")
+    return [",".join(gpus[i * per:(i + 1) * per]) for i in range(nprocs)]
 
 
 def main(argv=None) -> int:
@@ -53,6 +89,12 @@ def main(argv=None) -> int:
         sys.stderr.write(__doc__)
         return 2
 
+    gpus = visible_gpus(os.environ)
+    try:
+        slices = gpu_slices(gpus, nprocs, dev_per_proc) if gpus else None
+    except ValueError as e:
+        sys.stderr.write(f"{e}\n")
+        return 2
     port = free_port()
     procs = []
     for pid in range(nprocs):
@@ -60,7 +102,9 @@ def main(argv=None) -> int:
         env["MERYL_TPU_COORD"] = f"127.0.0.1:{port}"
         env["MERYL_TPU_NPROCS"] = str(nprocs)
         env["MERYL_TPU_PROCID"] = str(pid)
-        if dev_per_proc:
+        if slices:
+            env["CUDA_VISIBLE_DEVICES"] = slices[pid]
+        elif dev_per_proc:
             env["MERYL_TPU_LOCAL_DEVICES"] = str(dev_per_proc)
             # an inherited --xla_force_host_platform_device_count (e.g.
             # from a test harness) would override the per-process device

@@ -6,8 +6,8 @@ multi-node story is external sharding (`segment=a/b`,
 /root/reference/src/meryl/merylCommandBuilder.C:313-315) followed by a
 DB `union-sum` merge run by the user.  Here multi-host is first-class:
 
-  * every process joins one `jax.distributed` job (ICI/DCN collectives
-    come from XLA; on CPU test meshes, gloo),
+  * every process joins one `jax.distributed` job (collectives come
+    from XLA: NCCL on GPUs, gloo on CPU test meshes),
   * each process reads a disjoint sequence segment of the SAME input
     (the chunker's sequence-modulo split) and feeds shards for its own
     addressable devices,

@@ -1,20 +1,17 @@
-"""Multi-chip sharded k-mer counting: route-first SPMD step over an
-ICI all-to-all (shard_map).
+"""Multi-device sharded k-mer counting: route-first SPMD step over an
+all-to-all collective (shard_map; NCCL over NVLink on GPUs).
 
 The reference meryl's only distributed story is external sharding
 (`segment=a/b`, /root/reference/src/meryl/merylCommandBuilder.C:313-315)
-followed by a DB `union-sum` merge.  The TPU-native replacement is one
+followed by a DB `union-sum` merge.  The replacement here is one
 fused SPMD program per input step, built on the SAME routed dataflow as
-the single-chip device accumulator (ops/accum.py) — the round-4 flat
-formulation (local flat sort at 3.35 ns/elt + flat owner merge at
-~7 ns/elt) is gone:
+the single-device accumulator (ops/accum.py):
 
   1. every device extracts canonical kmer windows from its own shard of
      the base stream (data parallelism over input),
   2. routes raw windows to B key-range bucket rows with the exact
      integer equal-mass map (accum.row_from_prefix_int) — short
-     row-batched sorts at the measured lax.sort floor, never one long
-     row (docs/tpu-design.md),
+     row-batched sorts, never one long row,
   3. ships the (B, Wc) cell grid through ONE tiled `lax.all_to_all`:
      bucket rows are assigned to owner devices in contiguous blocks of
      rpo = B/n rows, so the collective needs NO gathers and no
@@ -84,20 +81,19 @@ LAST_SHARD_STATS: dict = {}
 def plan_shard_route(chunk_len: int, k: int, n: int) -> dict:
     """Static routing geometry for the SPMD step.
 
-    Mirrors accum.plan_route's measured trade-offs (short routing rows,
+    Mirrors accum.plan_route's trade-offs (short routing rows,
     3-sigma cell slack) with two extra constraints: the bucket-row
     count B must be a multiple of n (the all-to-all splits rows into
     equal owner blocks) and the row map must be the exact integer map
     (bits <= 16).  For tiny k the key space itself caps B — fewer,
     fatter rows keep the cells from being mostly padding."""
-    L0 = min(1 << 18, chunk_len)  # round-5 measured knee (see
-    # accum.plan_route / docs/tpu-design.md routing-row table)
+    L0 = min(1 << 18, chunk_len)  # as accum.plan_route
     while chunk_len % L0:
         L0 >>= 1
     R0 = chunk_len // L0
     bits = min(16, 2 * k)
     # key-space guard: at most ~2^(2k-5) rows are meaningfully
-    # distinct; overall cap 2^10 per the round-5 (L0, B) sweep
+    # distinct; overall cap 2^10 as in accum.plan_route
     cap = 1 << max(0, min(10, 2 * k - 5))
     b_target = max(n, min(cap, max(1, L0 // 8)))
     rpo = max(1, b_target // n)
@@ -150,7 +146,7 @@ def make_routed_step(mesh: Mesh, k: int, cfg: tuple, n: int,
                [2, s] = s's all-ones kmer count
     """
     nplanes = num_planes(k)
-    _, _, _, B, R0, L0, c, bits, _ = cfg
+    _, _, _, B, R0, L0, c, bits = cfg
 
     def step(codes):
         codes = codes.reshape(chunk_len)
@@ -232,13 +228,13 @@ def make_mask_sources(mesh: Mesh, nplanes: int, n: int, Wc: int):
 class ShardedCounter:
     """End-to-end multi-chip counting: feed (n_dev * chunk_len) base
     codes per step; every step routes windows to owner-keyed bucket
-    rows, ships them over ICI, and the owners fold them into sorted-
-    unique accumulators.  When an accumulator nears its entry budget
-    it spills to host RAM / disk (the reference's out-of-core batch
-    dump, P5) and resets.  finalize() merges spills + accumulators +
-    hatch extras per owner and returns globally sorted (hi, lo,
-    counts) — owner key ranges ascend with device id, so per-device
-    results concatenate in order.
+    rows, ships them through the all-to-all, and the owners fold them
+    into sorted-unique accumulators.  When an accumulator nears its
+    entry budget it spills to host RAM / disk (the reference's
+    out-of-core batch dump, P5) and resets.  finalize() merges spills +
+    accumulators + hatch extras per owner and returns globally sorted
+    (hi, lo, counts) — owner key ranges ascend with device id, so
+    per-device results concatenate in order.
 
     This replaces the reference's external count-shards-then-union-sum
     pattern (SURVEY.md P6) with one fused SPMD pass."""
@@ -261,7 +257,7 @@ class ShardedCounter:
         self.B, self.rpo, self.Wc = g["B"], g["rpo"], g["Wc"]
         self.bits = g["bits"]
         self.cfg = (self.k, self.nplanes, mode, g["B"], g["R0"],
-                    g["L0"], g["c"], g["bits"], "int")
+                    g["L0"], g["c"], g["bits"])
         self._step = make_routed_step(mesh, self.k, self.cfg, self.n,
                                       self.chunk_len)
         self._mask = None  # built on first bad source
@@ -271,8 +267,8 @@ class ShardedCounter:
         if acc_cap is None and os.environ.get("MERYL_TPU_SHARD_ACC_CAP"):
             acc_cap = int(os.environ["MERYL_TPU_SHARD_ACC_CAP"])
         if acc_cap is None:
-            cap_gb = float(os.environ.get("MERYL_TPU_ACC_CAP_GB", 4.0))
-            acc_cap = int(cap_gb * 1e9 /
+            from ..budget import budget_bytes
+            acc_cap = int(budget_bytes("acc") /
                           ((self.nplanes + 1) * 4 * 3 * self.n))
         self.acc_cap = int(acc_cap)
         # acc_cap is the TOTAL per-device entry budget; the per-row cap
@@ -590,7 +586,7 @@ class ShardedCounter:
             planes = [np.concatenate([c[p] for c in self._captures])
                       for p in range(self.nplanes)]
             self._captures = []
-            # defense in depth (the round-4 phantom-kmer lesson): the
+            # defense in depth (against phantom sentinel kmers): the
             # capture region holds real keys only by construction, and
             # the all-ones kmer is excluded at extraction — an
             # all-sentinel entry here can only be padding

@@ -482,8 +482,8 @@ class Evaluator:
                        for i in act.inputs)
         if uniq and m <= 6 and total >= self.ROWPACK_MIN:
             # row-batched layout for large groups: the action's sort
-            # stage then runs at the row-batched floor instead of one
-            # flat row (~log L apart — docs/tpu-design.md); the packer
+            # stage then sorts short rows instead of one flat row;
+            # the packer
             # splits rows at shared key boundaries so the windowed
             # compute stage and the flattened result stay exact
             from ..optree import BucketEvaluator

@@ -141,8 +141,8 @@ def _label_popcount(lab):
 
 @jax.jit
 def _action_sort_stage(planes, values, lab_lo, lab_hi, input_ids):
-    """Stable multiword sort with payloads; ends at the sort so XLA:TPU
-    keeps its fast sort path (see ops/count.py)."""
+    """Stable multiword sort with payloads; the program ends at the
+    sort (see ops/count.py)."""
     P = len(planes)
     keys = [planes[p] for p in range(P - 1, -1, -1)]
     ops = jax.lax.sort(tuple(keys) + (values, lab_lo, lab_hi, input_ids),
@@ -196,13 +196,12 @@ def _action_compute_stage(splanes, val, llo, lhi, ids,
     pres1 = jnp.where(present, 1, 0).astype(jnp.int32)
 
     # scatter-free per-run reductions broadcast to every element
-    # (jax.ops.segment_* lowers to scatters, which serialize on TPU).
-    # Runs are bounded by m (each input contributes at most one entry
-    # per key), so for small m the fwd+bwd segmented scans (measured
-    # 4.7 ns/elt EACH, and this stage runs ~a dozen of them) are
-    # replaced by 2(m-1) shifted elementwise passes sharing one set
-    # of same-run masks — the same windowed-reduction design the v1
-    # set-op engine adopted in round 3 (ops/setops.py).
+    # (jax.ops.segment_* lowers to scatters).  Runs are bounded by m
+    # (each input contributes at most one entry per key), so for
+    # small m the fwd+bwd segmented scans (this stage runs ~a dozen of
+    # them) are replaced by 2(m-1) shifted elementwise passes sharing
+    # one set of same-run masks — the same windowed-reduction design
+    # as the v1 set-op engine (ops/setops.py).
     if unique_inputs and m <= 6:  # m == 1 -> identity reductions
         # (multiset inputs may repeat a key within ONE input, so the
         # run-length <= m bound only holds for unique-keyed inputs)
@@ -497,7 +496,7 @@ def _action_compute_stage(splanes, val, llo, lhi, ids,
         out_llo, out_lhi = ~l_first[0], ~l_first[1]
     elif lop in ("shift-left", "shift-right", "rotate-left", "rotate-right"):
         s = int(lassign.constant) % 64
-        # 32-bit pair shifts (TPU has no native 64-bit integers)
+        # 32-bit pair shifts (labels travel as u32 plane pairs)
         lo0, hi0 = l_first
         def shl(lo, hi, s):
             if s == 0:

@@ -1,6 +1,6 @@
 // meryl_tpu native host substrate: byte-level sequence scanner.
 //
-// TPU-native equivalent of the reference's dnaSeqFile/FASTA-FASTQ layer
+// Native equivalent of the reference's dnaSeqFile/FASTA-FASTQ layer
 // (interface documented in /root/repo/SURVEY.md §2.3; call sites
 // /root/reference/src/meryl/merylInput.C:241-275).  This is the hot
 // host loop feeding the device pipeline: it converts raw FASTA/FASTQ

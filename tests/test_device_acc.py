@@ -196,13 +196,15 @@ def test_route_capture_clean_on_fully_valid_row():
     bits, B = c.cfg[7], c.cfg[3]
     pl, vl = _ext.extract_kmers(jnp.asarray(base), k, "canonical")
     rows_bg = np.asarray(jnp.where(
-        vl, accum._row_from_prefix(
-            accum._top_bits(pl, k, bits), bits, B, True), B))
+        vl, accum.row_from_prefix_int(
+            accum._top_bits(pl, k, bits).astype(jnp.uint32), bits, B,
+            True), B))
     hotpl, _ = _ext.extract_kmers(jnp.asarray(
         np.concatenate([hot, np.full(1, 9, np.uint8)])), k,
         "canonical")
-    hrow = int(np.asarray(accum._row_from_prefix(
-        accum._top_bits(hotpl, k, bits), bits, B, True))[0])
+    hrow = int(np.asarray(accum.row_from_prefix_int(
+        accum._top_bits(hotpl, k, bits).astype(jnp.uint32), bits, B,
+        True))[0])
     bg = int((rows_bg[: c.cfg[5]] == hrow).sum())
     copies = max(60, c.cfg[6] - bg + 120)
     period = np.empty((copies, 2 * k), np.uint8)
@@ -241,13 +243,15 @@ def test_acc_decode_exact_with_overflow_no_breakers():
     bits, B = c.cfg[7], c.cfg[3]
     pl, vl = _ext.extract_kmers(jnp.asarray(base), k, "canonical")
     rows_bg = np.asarray(jnp.where(
-        vl, _accum._row_from_prefix(
-            _accum._top_bits(pl, k, bits), bits, B, True), B))
+        vl, _accum.row_from_prefix_int(
+            _accum._top_bits(pl, k, bits).astype(jnp.uint32), bits, B,
+            True), B))
     hotpl, _ = _ext.extract_kmers(jnp.asarray(
         np.concatenate([hot, np.full(1, 9, np.uint8)])), k,
         "canonical")
-    hrow = int(np.asarray(_accum._row_from_prefix(
-        _accum._top_bits(hotpl, k, bits), bits, B, True))[0])
+    hrow = int(np.asarray(_accum.row_from_prefix_int(
+        _accum._top_bits(hotpl, k, bits).astype(jnp.uint32), bits, B,
+        True))[0])
     bg = int((rows_bg[: c.cfg[5]] == hrow).sum())
     copies = max(60, c.cfg[6] - bg + 120)
     period = np.empty((copies, 2 * k), np.uint8)
@@ -308,28 +312,28 @@ def test_acc_deferred_regrow_exact():
 
 def test_row_maps_monotone_at_product_bits():
     """The plane-keyed routing sort (accum._route_core) requires the
-    row maps to be monotone non-decreasing in the prefix.  The int map
-    is monotone by construction; the FLOAT map loses monotonicity to
-    float32 rounding from bits >= 24 — plan_route therefore caps bits
-    at 16.  This pins the invariant for every bits/B the planner can
-    emit (both maps, canonical and forward)."""
+    row map to be monotone non-decreasing in the prefix, and the SPMD
+    path requires the host (numpy) map to equal the device (jnp) map
+    bit for bit.  Pins both for every bits/B the planners can emit,
+    canonical and forward."""
     import itertools
 
     import jax
+    import jax.numpy as jnp
 
     from meryl_tpu.ops import accum
 
     with jax.default_device(jax.devices("cpu")[0]):
-        for bits, B in itertools.product((10, 14, 16), (8, 1024)):
+        for bits, B in itertools.product((10, 14, 16), (8, 12, 1024)):
             pref = np.arange(1 << bits, dtype=np.uint32)
             for canonical in (True, False):
                 ri = accum.row_from_prefix_int(pref, bits, B,
                                                canonical, xp=np)
                 assert (np.diff(ri) >= 0).all(), (bits, B, canonical)
-                import jax.numpy as jnp
-                rf = np.asarray(accum._row_from_prefix(
+                assert ri[0] == 0 and ri[-1] <= B - 1
+                rd = np.asarray(accum.row_from_prefix_int(
                     jnp.asarray(pref), bits, B, canonical))
-                assert (np.diff(rf) >= 0).all(), (bits, B, canonical)
+                np.testing.assert_array_equal(rd, ri)
 
 
 def test_plan_route_bits_capped():

@@ -1,6 +1,6 @@
 """Row-batched chunk sorting (MERYL_TPU_ROWLEN): the device sorts a
-chunk as independent rows (a single long lax.sort costs up to 20x the
-row-batched floor — docs/tpu-design.md) and the host merge cascade
+chunk as independent rows (one long sort row is the slow shape) and
+the host merge cascade
 union-sums duplicates across rows.  Differential coverage vs the
 1-row path and a brute-force dict."""
 

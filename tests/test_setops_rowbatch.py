@@ -1,8 +1,8 @@
 """Differential tests for the ROW-BATCHED set-op merge path.
 
 optree._pack_rows splits pre-sorted inputs at shared key boundaries into
-(R, L) rows so the device sorts at the row-batched floor instead of one
-long lax.sort (docs/tpu-design.md).  These tests force inputs large
+(R, L) rows so the device sorts short rows instead of one long
+lax.sort.  These tests force inputs large
 enough to cross ROW_SPLIT_MIN and check exact equality against the
 naive dict model, including the all-ones sentinel-key corner.
 """
